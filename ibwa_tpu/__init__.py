@@ -1,9 +1,9 @@
-"""ibwa_tpu — a TPU-native iterative read-alignment framework.
+"""ibwa_tpu — an iterative read-alignment framework with a JAX device engine.
 
 A from-scratch re-design of the iBWA pipeline (BWT/FM-index short-read
-alignment with iterative multi-reference remapping) for TPU hardware:
+alignment with iterative multi-reference remapping) for accelerators:
 
-* compute path: JAX / XLA / Pallas kernels over device meshes
+* compute path: JAX / XLA programs over device meshes
 * host path:    C++ native library (suffix sort, sequential walks, RNG
                 parity helpers) bound via ctypes + NumPy glue
 

@@ -7,7 +7,7 @@ stacks, D(i)-width pruning, seeding, top2/max_top2 early stopping,
 gap_shadow width updates and (k,l) deduplication.
 
 It exists to (a) pin down the exact hit-set semantics as a test oracle for
-the vectorized TPU engine and (b) serve as the host fallback for reads whose
+the vectorized device engine and (b) serve as the host fallback for reads whose
 search exceeds the device engine's fixed stack capacity.
 
 Hit records mirror bwt_aln1_t (bwtaln.h:34-38).

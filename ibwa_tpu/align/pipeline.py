@@ -4,7 +4,7 @@ Mirrors bwa_aln_core (bwtaln.c:173-241): batches of 0x40000 reads, the
 original gap_opt_t written as the stream header, per-read hit records.
 
 Engines:
-  * "jax"  — the vectorized TPU engine (ibwa_tpu.align.engine_jax); reads
+  * "jax"  — the vectorized device engine (ibwa_tpu.align.engine_jax); reads
              whose search overflows the device stack capacity are re-run on
              the host emulator (identical semantics, reference bwtgap.c
              relies on a 2M-entry heap bound instead)

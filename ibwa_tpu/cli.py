@@ -338,13 +338,16 @@ COMMANDS = _cmds()
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] in ("-h", "--help"):
-        print("ibwa-tpu — TPU-native iterative read aligner", file=sys.stderr)
+        print("ibwa-tpu — iterative read aligner (JAX device engine)",
+              file=sys.stderr)
         print(f"commands: {', '.join(COMMANDS)}", file=sys.stderr)
         return 1
     cmd = argv[0]
     if cmd not in COMMANDS:
         print(f"[ibwa-tpu] unrecognized command '{cmd}'", file=sys.stderr)
         return 1
+    from .compile_cache import enable
+    enable()
     return COMMANDS[cmd](argv[1:])
 
 

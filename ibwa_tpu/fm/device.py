@@ -8,8 +8,8 @@ device buffers:
     words: uint32[2 * n_blk, 8]         2-bit packed BWT text
 
 A batched occ query (bwt_occ / bwt_occ4, bwt.c:90-214) is a row gather of
-one checkpoint + up to 8 text words followed by a masked popcount — pure
-VPU work that XLA vectorizes over the whole query batch.  All interval
+one checkpoint + up to 8 text words followed by a masked popcount —
+elementwise integer work that XLA vectorizes over the whole query batch.  All interval
 arithmetic is uint32, matching the reference's bwtint_t; k == 0xFFFFFFFF
 plays the role of (bwtint_t)(-1).
 """
@@ -26,34 +26,6 @@ from .fmindex import FmIndex
 
 OCC_INTV = 128
 NEG1 = 0xFFFFFFFF
-
-# Split hot flat row gathers into this many independent gather ops.
-# Round-5 on-chip chase (scripts/bench_chase.py, marginal, readback-
-# forced): two half-size dependent gathers beat one full-size one at
-# B>=1024 (6.95 vs 9.97 ns/row at 512 B rows) — the gather engine has a
-# per-op concurrency knee — while each extra op costs ~1 us launch, so
-# small batches lose.  Read once at import; sweep with a fresh process.
-import os as _os
-GATHER_WAVES = int(_os.environ.get("IBWA_GATHER_WAVES", "1") or "1")
-
-
-def _waved_take(table, idx, waves: int = 0):
-    """table[idx] as `waves` independent serial gather ops (flat idx).
-
-    Value-identical to table[idx]; the split only changes the executed
-    op sequence.  optimization_barrier pins the chunk boundaries so XLA
-    cannot re-merge the gathers."""
-    W = waves or GATHER_WAVES
-    n = idx.shape[0]
-    if W <= 1 or n % W or n < 128 * W:
-        return table[idx]
-    c = n // W
-    outs = []
-    for w in range(W):
-        iw = jax.lax.optimization_barrier(idx[w * c:(w + 1) * c])
-        outs.append(table[iw])
-    return jnp.concatenate(outs, axis=0)
-
 
 @dataclasses.dataclass
 class DeviceFmPair:
@@ -92,11 +64,8 @@ class DeviceFmPair:
     # masked local gather + a psum over the axis (see _gather_block)
     shard_axis: str | None = None   # static
     # occ block interval: 128 (4 ckpt + 8 text words, 48 B rows — the
-    # disk layout), 64 (32 B rows) or 32 (24 B rows).  Round-5 on-chip
-    # chase: a 32 B row gathers 1.7x faster than 48 B at B=1024 (13.3 vs
-    # 22.4 us per 1024 rows) — the dependent-gather engine is
-    # request-bound and smaller rows clear faster.  The dimer table is
-    # always 128-base blocked, independent of this.
+    # disk layout), 64 (32 B rows, the default) or 32 (24 B rows).  The
+    # dimer table is always 128-base blocked, independent of this.
     intv: int = 128     # static
 
     @property
@@ -251,13 +220,10 @@ def build_device_pair(fwd: FmIndex, rev: FmIndex,
     l2 = fwd.L2.astype(np.uint32)
     if dimer is None:
         import os
-        # Default OFF as of round 4: the on-chip A/B (sweep_dimer,
-        # device-only, rep1 corpus, same ITER_CAP) measured the occ1
-        # engine at 8,055 reads/s vs 4,534 for DIMER_UNROLL=2 — the
-        # dimer table halves *steps* but each step gathers more and
-        # bigger rows (128 B occ2 vs 48 B occ4/occ1), and on-chip
-        # gather cost is ∝ rows·bytes, not per-op dispatch
-        # (ROUND4.md §2/§6).  IBWA_DIMER=1 opts back in.
+        # Default OFF: the dimer table halves *steps* but each step
+        # gathers more and bigger rows (128 B occ2 vs 32-48 B occ4/occ1),
+        # which measured slower end to end on the previous accelerator.
+        # IBWA_DIMER=1 opts back in.
         dimer = (fwd.seq_len <= DIMER_MAX_LEN
                  and os.environ.get("IBWA_DIMER") == "1"
                  and not os.environ.get("IBWA_NO_DIMER"))
@@ -294,21 +260,16 @@ def _gather_block(fm: DeviceFmPair, strand, k):
     off = k & jnp.uint32(fm.intv - 1)
     flat = strand * jnp.uint32(fm.n_blk) + blk
     if fm.shard_axis is None:
-        # flatten the index before the gather: an on-chip microbench
-        # (ROUND4.md §4) measured [B,2]-indexed row gathers at ~2x the
-        # per-row cost of flat [2B] gathers (37.5 vs 21 ns/row @ 48 B) —
-        # the [.., 2, 12] result tiles terribly on the (8,128) VREG grid.
-        # _waved_take then splits the flat gather into GATHER_WAVES ops
-        # (round-5 chase: waves lose at these row sizes; default 1).
+        # flatten the index before the gather: one flat [2B] row gather
+        # instead of a [B, 2]-indexed one
         if flat.ndim > 1:
-            row = _waved_take(fm.blocks, flat.reshape(-1)).reshape(
-                *flat.shape, roww)
+            row = fm.blocks[flat.reshape(-1)].reshape(*flat.shape, roww)
         else:
-            row = _waved_take(fm.blocks, flat)             # [..., roww]
+            row = fm.blocks[flat]                          # [..., roww]
     else:
         # sharded-index mode: rows are split contiguously over the mesh
         # axis; fetch what this shard owns, zero elsewhere, and psum the
-        # one-hot rows over ICI (one u32 row per query — bandwidth-cheap)
+        # one-hot rows over the axis (one u32 row per query)
         n_local = fm.blocks.shape[0]
         lo = (jax.lax.axis_index(fm.shard_axis).astype(jnp.uint32)
               * jnp.uint32(n_local))
@@ -354,8 +315,8 @@ def occ4(fm: DeviceFmPair, strand, k):
     pm = _partial_mask(nb)[..., None, None]
     sel = jnp.where(full, t, 0) | jnp.where(part, t & pm, 0)
     pc = jax.lax.population_count(sel)
-    # unrolled lane sum: a tiny trailing-axis reduce lowers to a slow
-    # cross-lane reduction on TPU, elementwise adds do not
+    # unrolled sum over the tiny trailing word axis: elementwise adds
+    # instead of a reduction
     cnt = ck
     for j in range(fm.wpb):
         cnt = cnt + pc[..., j]

@@ -1,7 +1,7 @@
 """Host-side FM-index queries + the structure-of-arrays device export.
 
 The on-disk interleaved layout (12 words per 128-base block: 4 occ counts +
-8 packed text words, bwt.h:56-63) is re-laid-out for the TPU as:
+8 packed text words, bwt.h:56-63) is re-laid-out for the device as:
 
     ckpt:  uint32[n_blk + 1, 4]   occ checkpoints (counts before block)
     words: uint32[n_blk, 8]       2-bit packed BWT text, zero padded

@@ -1,7 +1,7 @@
 // ibwa_tpu native host library.
 //
 // Host-side heavy lifting that is inherently sequential or
-// pointer-chasing and therefore stays off the TPU:
+// pointer-chasing and therefore stays off the device:
 //   * SA-IS suffix-array construction (index build)
 //   * BWT derivation + the sampled-SA inverse-Psi walk
 //     (semantics of /root/reference/bwt.c:48-79, re-implemented)

@@ -2359,7 +2359,7 @@ int64_t ibwa_sai_scan(const uint8_t* blob, int64_t blob_len, int64_t n_reads,
 
 // Prefill the SA-interval walk cache with device-resolved values: for
 // each interval i, vals[off[i]..off[i+1]) are the raw sa_walk values for
-// rows ks[i]..ls[i] of (dbidx, strand) — computed by the TPU LF-walk
+// rows ks[i]..ls[i] of (dbidx, strand) — computed by the device LF-walk
 // engine (ibwa_tpu/fm/walk.py), bit-equal to the host walks.  After the
 // first prefill, cached_walk consults the cache for every width.
 void ibwa_pe_prefill_walks(void* pctx, int32_t dbidx, int32_t strand,

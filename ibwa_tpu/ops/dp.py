@@ -134,8 +134,8 @@ def _extend_scan(targets, tlens, queries, qlens, g0, band, matrix,
     return score - 1, end_i, end_j
 
 
-# bucket grids: static compile shapes (first on-chip compile ~tens of
-# seconds each, cached in .jaxcache afterwards).  L1 (target length) only
+# bucket grids: static compile shapes (each compiles once on first use
+# and lands in the persistent compile cache).  L1 (target length) only
 # sizes the carry arrays — per-row work is the W window — so one generous
 # bucket suffices; L2 sets the scan length and B the lane count.
 L1_CAP = 4096

@@ -3,18 +3,19 @@
 Reads are the data axis — the reference's pthread work-claiming
 (bwtaln.c:100-113) becomes batch sharding over a `dp` mesh — and the
 FM-index block table is replicated per device (the reference shares one
-read-only index across threads, bwtaln.c:212).  Index replication fits a
-human-genome-scale table (~1.2 GB of 48-byte block rows per strand) in a
-single v5e chip's HBM.  For >HBM genomes the table shards contiguously
-over a second `idx` mesh axis (implemented below: `make_mesh_2d` +
+read-only index across threads, bwtaln.c:212).  Every device reaches
+every other at the same rate, so the mesh follows the algorithm alone: a
+flat `dp` axis over all visible devices.  A human-genome-scale table (32
+B rows at 64-base blocks, about 1.6 GB for both strands) fits one
+device's memory many times over.  The table can also shard contiguously
+over a second `idx` mesh axis (`make_mesh_2d` +
 `run_sharded_index_search`; fm/device.py::_gather_block does the masked
 local gather + psum) — bit-identical to the replicated path
-(tests/test_engine_jax.py sharded-index cases).
+(tests/test_sharded_index.py).
 
 Multi-host: run one process per host under `jax.distributed.initialize`;
 each host feeds its local shard of the read batch (per-host fastq
-shards), and the same jit works unchanged — collectives ride ICI within
-a slice and DCN across hosts.
+shards), and the same jit works unchanged.
 """
 
 from __future__ import annotations
@@ -150,14 +151,11 @@ def run_sharded_index_search(cfg, mesh: Mesh, dfm: DeviceFmPair, seqs,
                              n_lanes: int):
     """Search with the FM block table SHARDED over the idx axis.
 
-    For genomes whose interleaved block table exceeds one chip's HBM
-    (human-scale is ~2.9 GB for both strands; a v5e chip has 16 GB, so
-    this matters for pan-genome / multi-reference databases): each idx
-    shard holds a contiguous row range, every occ gather fetches the
-    rows it owns and psums the one-hot rows over the idx axis
-    (fm/device.py::_gather_block).  Reads stay data-parallel over dp;
-    within an idx group all lanes step in lockstep, so the psum is the
-    only added cost (~48 B/query over ICI)."""
+    Each idx shard holds a contiguous row range, every occ gather
+    fetches the rows it owns and psums the one-hot rows over the idx
+    axis (fm/device.py::_gather_block).  Reads stay data-parallel over
+    dp; within an idx group all lanes step in lockstep, so the psum is
+    the only added cost (one block row per query)."""
     n_idx = mesh.shape["idx"]
     if dfm.blocks.shape[0] % n_idx:
         raise ValueError(

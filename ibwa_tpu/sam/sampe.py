@@ -959,15 +959,10 @@ def sai2sam_pe(prefixes: list[str], sai_pairs: list[tuple[str, str]],
                 blobs[which].append(fps[which][i].read())
                 cursors[which].append(0)
         if device_available():
-            try:
-                from ..fm.walk import DeviceWalker
-                walkers = [DeviceWalker(db.load_fm(0), db.load_fm(1))
-                           for db in dbs.dbs]
-                print("[sai2sam_pe] SA walks on device", file=sys.stderr)
-            except Exception as e:
-                print(f"[sai2sam_pe] device walk engine unavailable: {e}",
-                      file=sys.stderr)
-                walkers = None
+            from ..fm.walk import DeviceWalker
+            walkers = [DeviceWalker(db.load_fm(0), db.load_fm(1))
+                       for db in dbs.dbs]
+            print("[sai2sam_pe] SA walks on device", file=sys.stderr)
 
     # flat-blob fast loader (native scan, no per-read Python objects)
     # when no trimming/offset-64/barcode is in play — the object loader

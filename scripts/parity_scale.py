@@ -1,6 +1,6 @@
 """Scale parity: batch-seam + repeat-rich differential runs vs the oracle.
 
-Covers what the unit suite's small fixtures cannot (VERDICT r1 item 3):
+Covers what the unit suite's small fixtures cannot:
   * config A — E. coli-scale SE+PE: >=300k reads, crossing the 0x40000
     batch seam (bwtaln.c:193, bwape.c:476): multi-batch drand48
     continuity, per-batch isize barriers, batch-boundary behavior.

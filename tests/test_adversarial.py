@@ -1,4 +1,4 @@
-"""Adversarial differential cases (VERDICT r2 item 9): N-runs in reads,
+"""Adversarial differential cases: N-runs in reads,
 -q trimming combined with -I (Illumina-1.3 offset-64 quals), batch-seam
 crossing in aln (BAM input) and samse/sampe, and a 3-database remap
 corpus.  Oracle: the reference binary (bwaseqio.c:74-141, saiset.c:45-78

@@ -1,6 +1,6 @@
 """Differential tests: our `aln` search vs the reference binary's .sai output.
 
-The host emulator (engine_ref) is the semantic oracle for the TPU engine, so
+The host emulator (engine_ref) is the semantic oracle for the device engine, so
 it must be bit-exact against the reference binary first.
 """
 

@@ -1,8 +1,8 @@
 """Direct parity of the device occ kernels across block intervals.
 
 `build_device_pair(intv=...)` re-checkpoints the 128-base disk layout at
-64- or 32-base intervals (smaller rows gather faster on TPU — the
-dependent-gather engine is request-bound).  These tests pin occ4/occ1
+64- or 32-base intervals (smaller rows, fewer bytes per gather).  These
+tests pin occ4/occ1
 and the LF walk bit-equal to the host FmIndex (reference bwt.c:90-214
 semantics) for every supported interval, including the sentinel-adjusted
 edge rows (k == NEG1, k == seq_len, k at/around primary).

@@ -51,7 +51,6 @@ def test_sharded_index_matches_replicated():
     devs = jax.devices("cpu")
     if len(devs) < 8:
         pytest.skip("needs 8 virtual devices")
-    engine_jax.PALLAS_STACK = False
     dfm, cfg, batch = _problem()
 
     # pad the block table so 2*n_blk divides the idx axis

@@ -56,7 +56,7 @@ def test_stdsw_matches_oracle(tmp_path, oracle, capsys, rng):
     assert got == want
 
 
-def test_qualfa2fq_matches_perl(tmp_path, capsys, rng):
+def test_qualfa2fq_matches_perl(tmp_path, capsys, rng, reference_tree):
     fa = tmp_path / "reads.fa"
     qual = tmp_path / "reads.qual"
     with open(fa, "w") as ffa, open(qual, "w") as fq:
@@ -70,7 +70,7 @@ def test_qualfa2fq_matches_perl(tmp_path, capsys, rng):
             fq.write(f">read{i} comment here\n{qs}\n")
 
     want = subprocess.run(
-        ["perl", "/root/reference/qualfa2fq.pl", str(fa), str(qual)],
+        ["perl", str(reference_tree / "qualfa2fq.pl"), str(fa), str(qual)],
         capture_output=True, text=True, check=True).stdout
     got = _run_ours(["qualfa2fq", str(fa), str(qual)], capsys)
     assert got == want
@@ -92,7 +92,8 @@ def _write_solid(d, title, tag, ids, rng):
             fq.write(f">{panel}_{x}_{y}_{tag}\n{quals}\n")
 
 
-def test_solid2fastq_paired_matches_perl(tmp_path, rng, monkeypatch):
+def test_solid2fastq_paired_matches_perl(tmp_path, rng, monkeypatch,
+                                         reference_tree):
     """Paired csfasta+qual -> three gz fastqs, byte-compared vs the Perl
     (sorted merge, /1 in read2.gz swap, -1 quals, unpaired singles)."""
     f3 = [(1, 2, y) for y in (3, 5, 8, 11, 20)] + [(1, 3, 1)]
@@ -105,7 +106,7 @@ def test_solid2fastq_paired_matches_perl(tmp_path, rng, monkeypatch):
         _write_solid(d, "in", "R3", r3, random.Random(6))
 
     subprocess.run(
-        ["perl", "/root/reference/solid2fastq.pl", "in", "out"],
+        ["perl", str(reference_tree / "solid2fastq.pl"), "in", "out"],
         cwd=da, capture_output=True, text=True, check=True)
     monkeypatch.chdir(db)
     assert cli.main(["solid2fastq", "in", "out"]) == 0
@@ -117,7 +118,8 @@ def test_solid2fastq_paired_matches_perl(tmp_path, rng, monkeypatch):
         assert wa == wb, f"{suffix} differs"
 
 
-def test_solid2fastq_single_end_matches_perl(tmp_path, rng, monkeypatch):
+def test_solid2fastq_single_end_matches_perl(tmp_path, rng, monkeypatch,
+                                             reference_tree):
     f3 = [(1, 2, 3), (1, 2, 9), (2, 0, 4)]
     da = tmp_path / "perl"
     db = tmp_path / "ours"
@@ -125,7 +127,7 @@ def test_solid2fastq_single_end_matches_perl(tmp_path, rng, monkeypatch):
         d.mkdir()
         _write_solid(d, "in", "F3", f3, random.Random(7))
     subprocess.run(
-        ["perl", "/root/reference/solid2fastq.pl", "in", "out"],
+        ["perl", str(reference_tree / "solid2fastq.pl"), "in", "out"],
         cwd=da, capture_output=True, text=True, check=True)
     monkeypatch.chdir(db)
     assert cli.main(["solid2fastq", "in", "out"]) == 0
